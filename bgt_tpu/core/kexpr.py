@@ -12,7 +12,7 @@ Two evaluators are provided:
 - :meth:`Kexpr.eval` — scalar, error-compatible with ``ke_eval``;
 - :meth:`Kexpr.compile_vector` — compiles the RPN once into a function over
   numpy/jax arrays so per-site filters (AC/AN/AC#/AN#) evaluate for a whole
-  site batch at once instead of re-binding per row (the TPU replacement for
+  site batch at once instead of re-binding per row (the batched replacement for
   per-site ``ke_set_int`` + ``ke_eval`` in reference bgt.c:700-719).
 """
 

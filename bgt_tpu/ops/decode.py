@@ -15,17 +15,15 @@ Independent checkpoint blocks (every 2^shift rows) decode in parallel via
 vmap/grid; within a block the scan is inherently sequential.
 
 DESIGN NOTE — why the production path uses tiles instead.  Each scan step is
-dominated by gathers/scatters of m-wide int vectors, which TPUs execute at
-~1 element/cycle (no vector scatter unit), so this kernel runs orders of
-magnitude below the VPU's elementwise rate; the same data as pre-decoded
+dominated by gathers/scatters of m-wide int vectors, which run far below
+an accelerator's elementwise rate; the same data as pre-decoded
 packed tiles (ops/tiles.py, built once by the native host codec at ~GB/s)
-is scanned by the popcount kernels at HBM speed of light, and even
-HRC-scale tiles (2 bits/genotype) stream from host RAM faster than this
-kernel decodes.  TPU-first here means choosing the layout the hardware
-likes rather than forcing the CPU-optimal encoding through it.  The scan
+is scanned by the popcount kernels as a streaming pass.  The design
+chooses the layout the device likes rather than forcing the CPU-optimal
+encoding through it.  The scan
 decoder remains the right tool when only RLE data fits in HBM and a full
 decode of a narrow row range is needed; it is also the correctness oracle
-for any future Pallas variant.
+for any future hand-written variant.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Genotype tile store: HBM-friendly packed 2-bit genotype matrix.
 
-The TPU-native device layout for a BGT database.  The on-disk PBF stays the
+The device layout for a BGT database.  The on-disk PBF stays the
 compact interchange format (PBWT+RLE, reference-compatible); at import time
 (or lazily on first query) the matrix is ALSO materialized as two bit-planes
 packed 32 haplotypes per uint32 word, row-major:
@@ -32,7 +32,8 @@ MAGIC_V1 = b"GTC\x01"
 MAGIC = b"GTC\x02"  # v2 appends the per-row all-columns code-count aggregate
 MAGIC_SHARD = b"GTS\x01"  # column-slice shard of a GTC tile
 WORD_BITS = 32
-# column padding: keep the uint8 view a multiple of 128 lanes * 4 sublanes
+# column padding: a fixed part of the GTC format (rows are whole 1024-column
+# blocks, so word rows stay aligned and split evenly over mesh devices)
 COL_ALIGN = 1024
 
 
@@ -323,7 +324,7 @@ class TileStore:
         Row ranges warmed by this process are tracked and skipped on
         repeat: re-reading an already-cached 1.2 GB span costs ~0.25 s of
         pure buffer-cache copying, which dominated the warm HRC-scale
-        subset query (VERDICT r4 next #2)."""
+        subset query."""
         path = getattr(self, "_path", None)
         if path is None or self._map_spec is None:
             return

@@ -1,12 +1,13 @@
-"""Multi-host execution: the sample-column mesh spanning a pod slice.
+"""Multi-host execution: the sample-column mesh spanning several hosts.
 
-On a TPU pod slice each host runs the same query process; JAX's distributed
-runtime stitches the per-host devices into one global mesh and `shard_map`
-collectives ride ICI within a host and DCN across hosts.  The data layout
+Each host runs the same query process; JAX's distributed runtime stitches
+the per-host devices into one global mesh and `shard_map` collectives run
+over the links between the devices (NVLink within a host, the network
+across hosts).  The data layout
 follows the single-host design (docs/DESIGN.md §5):
 
 - every host imports (or loads) the column slice of the tile store covering
-  its own samples — the TPU generalization of the reference's "one BGT
+  its own samples — the device-mesh generalization of the reference's "one BGT
   database per sub-cohort" composition;
 - host-side site selection (CSI regions, BED, FMF metadata, paging) is
   replicated: each host computes the identical site stream, exactly like
@@ -14,11 +15,12 @@ follows the single-host design (docs/DESIGN.md §5):
 - per-site/per-group counts psum over the global sample axis; genotype
   output all-gathers only for sites that pass all filters.
 
-Usage on each host of a slice:
+Usage on each host (the coordinator address, process count and this
+process's id are always given: nothing detects a cluster on its own):
 
     from bgt_tpu.parallel import distributed
-    distributed.initialize()          # env-driven (TPU pods auto-detect)
-    mesh = distributed.global_mesh()  # ('s',) over every device in the slice
+    distributed.initialize("host0:12345", num_processes=2, process_id=0)
+    mesh = distributed.global_mesh()  # ('s',) over every device of every host
 
 then hand ``mesh`` to :func:`bgt_tpu.parallel.mesh.sharded_count_range_fn`
 with each host's local plane shards placed via
@@ -36,7 +38,8 @@ from . import mesh as meshlib
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """jax.distributed.initialize with TPU-pod auto-detection defaults."""
+    """jax.distributed.initialize; without a coordinator address (tests,
+    one host) the process runs alone."""
     if jax.process_count() > 1:
         return  # already initialized
     kwargs = {}
@@ -68,7 +71,7 @@ def local_column_range(n_words: int, mesh: jax.sharding.Mesh) -> tuple[int, int]
     order = {d: i for i, d in enumerate(mesh.devices.flat)}
     pos = sorted(order[d] for d in jax.local_devices() if d in order)
     # the word partition assumes each process owns one contiguous stretch of
-    # mesh positions (true on TPU slices and jax.devices() order); fail
+    # mesh positions (true of jax.devices() order); fail
     # loudly if a topology ever violates it
     assert pos and pos == list(range(pos[0], pos[-1] + 1)), (
         f"non-contiguous local mesh positions {pos}: the contiguous "

@@ -1,6 +1,6 @@
 """Multi-chip sharding of the genotype matrix over a device mesh.
 
-The sample-column axis is the natural sharding seam (the TPU generalization
+The sample-column axis is the natural sharding seam (the device-mesh generalization
 of the reference's multi-database composition, bgt.c:829-842): each device
 holds a column slice of the packed planes; per-site/per-group counts are
 local masked popcounts followed by a ``psum`` over the sample axis, and

@@ -176,7 +176,7 @@ def _finish_native_import(prefix: str, res, n_ctg: int,
         return None
     # site-table sidecar: the importer has every site in hand, so pay the
     # .sites.bin write now instead of a cold-query re-scan of the BCF
-    # (VERDICT r4 next #3; the reference builds its index at import for the
+    # (the reference builds its index at import for the
     # same reason, import.c:117).  Written AFTER the .bcf/.csi so its mtime
     # passes the freshness check; best-effort (the lazy build remains).
     try:

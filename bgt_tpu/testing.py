@@ -286,6 +286,15 @@ def random_spl(n_samples: int, seed: int = 0, sample_prefix: str = "S",
     return "\n".join(lines) + "\n"
 
 
+def _bernoulli_cells(rng, k: int, n: int, p: float):
+    """(row, col) index arrays, sorted by row, of the cells of a k x n grid
+    hit by independent Bernoulli(p) events — drawn sparsely (a count, then
+    positions) instead of one uniform per cell.  A cell drawn twice counts
+    once, a negligible bias at the small rates used here."""
+    flat = np.sort(rng.integers(0, k * n, rng.binomial(k * n, p)))
+    return flat // n, flat % n
+
+
 def synth_gt_bcf_to_file(path: str,
                          n_samples: int,
                          n_sites: int,
@@ -350,15 +359,17 @@ def synth_gt_bcf_to_file(path: str,
             freqs = rng.beta(0.2, 0.8, size=k)
             founder = (rng.random((k, n_founders))
                        < freqs[:, None]).astype(np.uint8)
-            switches = rng.random((k, n_hap)) < switch_rate
-            jumps = rng.integers(0, n_founders, (k, n_hap)).astype(np.int32)
+            sw_site, sw_hap = _bernoulli_cells(rng, k, n_hap, switch_rate)
+            jumps = rng.integers(0, n_founders, sw_site.size).astype(np.int32)
+            bounds = np.searchsorted(sw_site, np.arange(k + 1))
             codes = np.empty((k, n_hap), dtype=np.uint8)
             for i in range(k):
                 if lo + i > 0:
-                    cur = np.where(switches[i], jumps[i], cur)
+                    sl = slice(bounds[i], bounds[i + 1])
+                    cur[sw_hap[sl]] = jumps[sl]
                 codes[i] = founder[i][cur]
-            miss = rng.random((k, n_hap)) < p_missing
-            codes[miss] = 2
+            miss_site, miss_hap = _bernoulli_cells(rng, k, n_hap, p_missing)
+            codes[miss_site, miss_hap] = 2
             ts = TileStore.from_codes(codes)
             zeros = np.zeros(k, dtype=np.int64)
             chunks = native.emit_bcf_records(

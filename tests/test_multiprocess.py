@@ -133,8 +133,7 @@ assert stores[0].word_offset == (0 if pid == 0 else stores[0].n_words // 2)
 with open(f"shard_out_{pid}.vcf", "w") as fp:
     fp.write(buf.getvalue())
 # GT-emitting queries assemble genotypes through the mesh all_gather
-# (sharded_pairs_rows_fn) — full dump and a subset (VERDICT r3 missing #1,
-# reference merge-gather seam bgt.c:829-842)
+# (sharded_pairs_rows_fn) — full dump and a subset (reference merge-gather seam bgt.c:829-842)
 buf = _io.StringIO()
 assert main_view(["-C", "db"], out=buf) == 0
 with open(f"shard_gt_{pid}.vcf", "w") as fp:
@@ -158,7 +157,7 @@ print("proc", pid, "ok", flush=True)
 def test_two_process_shard_files_byte_parity(tmp_path):
     """Each process opens ONLY its on-disk column-slice shard (the full
     .gtc is deleted before the children start) and the merged counts still
-    match the single-process output byte for byte (VERDICT r2 missing #2)."""
+    match the single-process output byte for byte."""
     from bgt_tpu.ops.tiles import TileStore
     vcf = testing.random_vcf(n_samples=300, n_sites=120, seed=44)
     (tmp_path / "in.vcf").write_text(vcf)

@@ -1,5 +1,5 @@
 """Scale-shaped regression: >=10^4 samples x >=10^5 sites, parity vs the
-reference binary (VERDICT r2 item 10 — catches Python-loop cliffs that the
+reference binary (catches Python-loop cliffs that the
 small parity suites cannot see).  Opt-in: BGT_TPU_SCALE_TESTS=1 (several
 minutes of generation + double import on 2 cores)."""
 
@@ -73,7 +73,7 @@ def _ref_md5(ref_bgt, d, args) -> str:
 @pytest.mark.parametrize("args", [
     ["-G", "-C"],
     ["-G", "-C", "-r", "11:30000000-80000000"],
-    # 10^4-sample group selection (VERDICT r2 weak #7)
+    # 10^4-sample group selection
     ["-G", "-C", "-s", 'population=="CEU"', "-s", 'population=="YRI"'],
     ["-G", "-f", "AC>100"],
     ["-i", "50001", "-n", "200"],

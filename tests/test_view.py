@@ -438,7 +438,7 @@ def test_fmf_cli_parity(tmp_path, ref_bgt):
 
 
 def test_alcnt_hapcnt_deep_parity(db, ref_bgt):
-    """-S/-H through the batched fastpath (VERDICT r2 item 2): region and
+    """-S/-H through the batched fastpath: region and
     subset interplay, group quirk, ref-allele keys, the -n read-one-extra
     quirk, and -t table mode with allele sets."""
     res = subprocess.run([ref_bgt, "getalt", "refdb"], cwd=db,

@@ -9,8 +9,8 @@ global genotype-count throughput.  Run it once per process count:
     python tools/bench_multiprocess.py 1
     python tools/bench_multiprocess.py 2
 
-On real multi-host TPU slices each process maps to a host and the psum
-rides ICI/DCN; on this CPU harness the processes share the machine's
+On a real multi-host cluster each process maps to a host and the psum
+rides the interconnect; on this CPU harness the processes share the machine's
 cores, so the 2-process number demonstrates correctness of the multi-host
 path and overhead of the cross-process collective, not hardware scaling.
 """

@@ -17,8 +17,8 @@ Methodology notes (round-4 revision):
     a virtual device model one chip.  This host has few physical cores;
     device counts beyond them oversubscribe and their efficiencies are
     reported for completeness only (`physical_cores` says where that
-    starts).  On a real TPU slice each shard is a chip and the psum rides
-    ICI (the BASELINE north star, >=80% to 2 hosts, needs that hardware).
+    starts).  On real cards each shard is a GPU and the psum rides NVLink;
+    this harness cannot measure that.
   - Timing forces the result to host with np.asarray (the production
     readback); block_until_ready alone under-reports on this backend.
   - Strong scaling runs at a row count where plane bandwidth dominates
